@@ -2,8 +2,8 @@
 
 Python analog of the reference's examples/manual_example.c: the full tuning
 surface — max_error, banded (heuristic) execution with an explicit band width
-and re-centering interval, batch size for the streaming pipeline, backend
-selection, and distance-only mode.
+and re-centering interval, batch size for the streaming pipeline, and
+distance-only mode.
 
 Run:  python examples/manual_example.py
 """
@@ -50,8 +50,6 @@ def main() -> int:
         # Streaming pipeline batch (reference: wfagpu_set_batch_size).
         batch_size=32,
         compute_cigar=False,
-        # "auto" picks Pallas kernels on TPU, the XLA engine elsewhere.
-        backend="auto",
     )
     results = align_pairs_pipelined(patterns, texts, opts)
 

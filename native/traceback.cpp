@@ -49,8 +49,8 @@ struct CigarBuf {
   }
 };
 
-// Backward DP walk shared by both choice-table layouts; ChoiceAt is
-// (d, k) -> 4-bit choice, or a negative error code.
+// Backward DP walk; ChoiceAt is (d, k) -> 4-bit choice, or a negative
+// error code.
 template <typename ChoiceAt>
 static int walk_ops(ChoiceAt&& choice_at, int32_t distance, int plen,
                     int tlen, int x, int o, int e,
@@ -105,38 +105,6 @@ static int decode_one(const uint8_t* choices, const int32_t* lo_trace,
     int j = k - lo_trace[static_cast<int64_t>(s) * B + b];
     if (j < 0 || j >= W) return -2;
     return choices[(static_cast<int64_t>(s) * B + b) * W + j];
-  };
-  std::vector<uint8_t> ops_rev;
-  int rc = walk_ops(choice_at, distance, plen, tlen, x, o, e, &ops_rev);
-  if (rc != 0) return rc;
-  emit_cigar(ops_rev, pat, plen, txt, tlen, &cb);
-  cb.flush();
-  *out = std::move(cb.s);
-  return 0;
-}
-
-// Pallas-layout decode: by-score nibble-packed words [C, B, W] int32 with a
-// by-score window base (lo_trace row per alignment) or a constant base.
-static int decode_one_packed(const int32_t* words, int64_t C, int64_t B,
-                             int64_t W, int64_t b, const int32_t* lo_row,
-                             int32_t lo_const, int32_t distance,
-                             const char* pat, int plen, const char* txt,
-                             int tlen, int x, int o, int e, std::string* out) {
-  CigarBuf cb;
-  if (distance == 0) {
-    cb.push(OP_M, tlen);
-    cb.flush();
-    *out = std::move(cb.s);
-    return 0;
-  }
-  auto choice_at = [&](long d, int k) -> int {
-    int64_t c = d >> 3;
-    if (c >= C) return -1;
-    int32_t lo = lo_row ? lo_row[d] : lo_const;
-    int j = k - lo;
-    if (j < 0 || j >= W) return -2;
-    int32_t w = words[(c * B + b) * W + j];
-    return (w >> (4 * (d & 7))) & 0xF;
   };
   std::vector<uint8_t> ops_rev;
   int rc = walk_ops(choice_at, distance, plen, tlen, x, o, e, &ops_rev);
@@ -219,84 +187,6 @@ void wfa_traceback_batch(const uint8_t* choices, const int32_t* lo_trace,
     int rc = decode_one(choices, lo_trace, S, B, W, b, step_of_score,
                         distances[b], seqs + p_off[b], p_len[b],
                         seqs + t_off[b], t_len[b], x, o, e, &cig);
-    if (rc != 0) {
-      status[b] = static_cast<int8_t>(2 + rc);
-      cigars[b * cigar_stride] = '\0';
-      continue;
-    }
-    if (static_cast<int64_t>(cig.size()) + 1 <= cigar_stride) {
-      std::memcpy(cigars + b * cigar_stride, cig.c_str(), cig.size() + 1);
-      status[b] = 1;
-    } else {
-      cigars[b * cigar_stride] = '\0';
-      status[b] = 2;
-    }
-  }
-}
-
-// Compact device-walk decode: the Pallas traceback kernel already walked the
-// DP on device and shipped one backward-ordered 2-bit op stream per alignment
-// (16 ops per int32 word).  This entry only unpacks the stream and replays it
-// into a run-length CIGAR — the host never sees a choice table.  Analog of
-// expanding the reference's per-alignment offloaded result region
-// (utils/cigar.c recover_cigar_affine over BT_OFFLOADED_RESULT_ELEMENTS).
-// n_ops[b]: ops in the stream; 0 with finished => distance-0 pair (pure
-// match); < 0 => corrupt device walk, caller re-aligns on CPU (status 0).
-// status: 0 skipped, 1 ok, 2 overflow.
-void wfa_cigar_from_ops_batch(
-    const int32_t* ops_words, int64_t B, int64_t OPW, const int32_t* n_ops,
-    const int8_t* finished, const char* seqs, const int64_t* p_off,
-    const int64_t* t_off, const int32_t* p_len, const int32_t* t_len,
-    char* cigars, int64_t cigar_stride, int8_t* status) {
-#pragma omp parallel for schedule(dynamic, 16)
-  for (int64_t b = 0; b < B; ++b) {
-    if (!finished[b] || n_ops[b] < 0) {
-      status[b] = 0;
-      continue;
-    }
-    const int32_t n = n_ops[b];
-    const int32_t* wrow = ops_words + b * OPW;
-    // Stream is in backward walk order; emit wants forward order.
-    std::vector<uint8_t> ops_fwd(n);
-    for (int32_t i = 0; i < n; ++i)
-      ops_fwd[n - 1 - i] = (wrow[i >> 4] >> (2 * (i & 15))) & 3;
-    CigarBuf cb;
-    emit_cigar(ops_fwd, seqs + p_off[b], p_len[b], seqs + t_off[b], t_len[b],
-               &cb);
-    cb.flush();
-    if (static_cast<int64_t>(cb.s.size()) + 1 <= cigar_stride) {
-      std::memcpy(cigars + b * cigar_stride, cb.s.c_str(), cb.s.size() + 1);
-      status[b] = 1;
-    } else {
-      cigars[b * cigar_stride] = '\0';
-      status[b] = 2;
-    }
-  }
-}
-
-// Pallas-layout batch decode.
-// words:    int32 [C, B, W]  by-score nibble-packed choices (8 scores/word)
-// lo_trace: int32 [B, lo_stride] window base per score, or NULL (then
-//           lo_const is the fixed exact-mode window base, -W/2)
-// status codes as in wfa_traceback_batch.
-void wfa_traceback_batch_packed(
-    const int32_t* words, int64_t C, int64_t B, int64_t W,
-    const int32_t* lo_trace, int64_t lo_stride, int32_t lo_const,
-    const int32_t* distances, const int8_t* finished, const char* seqs,
-    const int64_t* p_off, const int64_t* t_off, const int32_t* p_len,
-    const int32_t* t_len, int x, int o, int e, char* cigars,
-    int64_t cigar_stride, int8_t* status) {
-#pragma omp parallel for schedule(dynamic, 4)
-  for (int64_t b = 0; b < B; ++b) {
-    if (!finished[b]) {
-      status[b] = 0;
-      continue;
-    }
-    const int32_t* lo_row = lo_trace ? lo_trace + b * lo_stride : nullptr;
-    std::string cig;
-    int rc = decode_one_packed(words, C, B, W, b, lo_row, lo_const,
-                               distances[b], seqs + p_off[b], p_len[b],
-                               seqs + t_off[b], t_len[b], x, o, e, &cig);
     if (rc != 0) {
       status[b] = static_cast<int8_t>(2 + rc);
       cigars[b * cigar_stride] = '\0';

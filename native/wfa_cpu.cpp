@@ -1,5 +1,5 @@
 // CPU gap-affine wavefront aligner (score + CIGAR) — the fallback engine and
-// differential-test oracle for the TPU-native WFA framework.
+// differential-test oracle for the wavefront alignment framework.
 //
 // Role-equivalent to the reference's utils/wfa_cpu.c bridge over the vendored
 // WFA2-lib (external/WFA): it re-aligns every pair the accelerator kernel

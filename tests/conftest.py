@@ -1,11 +1,15 @@
-"""Test configuration: run everything on a virtual 8-device CPU mesh.
+"""Test configuration.
 
-The driver's multichip dry-run uses the same mechanism
-(xla_force_host_platform_device_count); real-TPU benchmarking lives in
-bench.py, not in the unit tests.
+The suite runs on whatever platform ``JAX_PLATFORMS`` selects; with
+``JAX_PLATFORMS=cpu`` the CPU backend is split into 8 virtual devices, so
+the data-parallel paths shard as they would over several cards.  Tests
+marked ``gpu`` need an NVIDIA card and skip elsewhere; on the card run
+``python -m pytest tests/ -m gpu``.
 """
 import os
 import sys
+
+import pytest
 
 os.environ.setdefault(
     "XLA_FLAGS",
@@ -14,9 +18,14 @@ os.environ.setdefault(
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax  # noqa: E402
 
-# WFA_TPU_TEST_HW=1 runs the suite against the real attached accelerator
-# (used by the verify flow); default is the hermetic CPU mesh.
-if not os.environ.get("WFA_TPU_TEST_HW"):
-    jax.config.update("jax_platforms", "cpu")
+@pytest.fixture
+def gpu_device():
+    """The first GPU device; skips the test where JAX sees none.  Decided
+    here, at run time, never while test modules are imported."""
+    import jax
+
+    devs = [d for d in jax.devices() if d.platform == "gpu"]
+    if not devs:
+        pytest.skip("needs an NVIDIA GPU (JAX sees none)")
+    return devs[0]

@@ -1,7 +1,7 @@
 """Multi-host helpers: single-process degradation, shard arithmetic, the CLI
 host-shard path (with injected process ids), score gathering and merging.
 
-Real pod bring-up cannot run here; everything with cross-process semantics is
+A real multi-machine bring-up cannot run here; everything with cross-process semantics is
 exercised by (a) injecting explicit process_id/num_processes and checking the
 shards compose back to the global batch, and (b) running the collective
 helpers in their single-process degradation (process_allgather with one
@@ -83,7 +83,7 @@ def test_two_process_distributed_bringup(tmp_path):
     """REAL 2-process `jax.distributed` bring-up on CPU: coordinator +
     worker subprocesses shard a batch, align their host shards, allgather
     the scores over the distributed runtime, and process 0 merges them —
-    the full multi-host path minus actual TPU pods."""
+    the full multi-host path minus a real multi-machine interconnect."""
     import subprocess
     import sys
     from pathlib import Path
@@ -108,7 +108,7 @@ def test_two_process_distributed_bringup(tmp_path):
         "sp, st, _ = shard_batch(pats, txts, None)\n"
         "from wfa_tpu import AlignmentOptions, Penalties, align_pairs\n"
         "res = align_pairs(sp, st, AlignmentOptions(\n"
-        "    penalties=Penalties(2, 3, 1), max_error=20, backend='xla',\n"
+        "    penalties=Penalties(2, 3, 1), max_error=20,\n"
         "    data_parallel=False))\n"
         "local = np.array([r.error for r in res], dtype=np.int32)\n"
         "g = np.asarray(allgather_scores(local, total=9))\n"
@@ -117,7 +117,7 @@ def test_two_process_distributed_bringup(tmp_path):
         "    merged = merge_sharded_scores(list(g), 9)\n"
         "    ref = [align_pairs([p], [t], AlignmentOptions(\n"
         "        penalties=Penalties(2, 3, 1), max_error=20,\n"
-        "        backend='xla', data_parallel=False))[0].error\n"
+        "        data_parallel=False))[0].error\n"
         "        for p, t in zip(pats, txts)]\n"
         "    assert merged.tolist() == ref, (merged.tolist(), ref)\n"
         "print('OK', pid)\n"

@@ -17,7 +17,7 @@ PEN = Penalties(2, 3, 1)
 
 def _run(pairs, **kw):
     opts = AlignmentOptions(
-        penalties=PEN, compute_cigar=True, max_error=64, backend="xla", **kw
+        penalties=PEN, compute_cigar=True, max_error=64, **kw
     )
     return align_pairs([p for p, _ in pairs], [t for _, t in pairs], opts)
 
@@ -89,7 +89,7 @@ def test_device_retry_escalates_before_cpu_fallback():
     assert res[0].error > 8  # genuinely past the first budget below
     opts_low = AlignmentOptions(
         penalties=PEN, compute_cigar=True, max_error=res[0].error - 2,
-        backend="xla", device_retries=1,
+        device_retries=1,
     )
     r1 = align_pairs([p, p], [t, p], opts_low)
     assert r1[0].finished_on_accelerator
@@ -98,7 +98,7 @@ def test_device_retry_escalates_before_cpu_fallback():
     # With retries disabled the same pair must take the CPU fallback.
     opts_none = AlignmentOptions(
         penalties=PEN, compute_cigar=True, max_error=res[0].error - 2,
-        backend="xla", device_retries=0,
+        device_retries=0,
     )
     r0 = align_pairs([p, p], [t, p], opts_none)
     assert not r0[0].finished_on_accelerator
@@ -110,7 +110,7 @@ def test_device_retry_skips_non_acgt():
     re-run them (they go straight to the CPU fallback)."""
     p, t = b"ACGTNACGT" * 8, b"ACGTTACGT" * 8
     opts = AlignmentOptions(
-        penalties=PEN, compute_cigar=True, max_error=4, backend="xla",
+        penalties=PEN, compute_cigar=True, max_error=4,
         device_retries=3,
     )
     res = align_pairs([p], [t], opts)

@@ -49,7 +49,7 @@ def test_fuzz_mixed_lengths_cigar():
     pats = [p for p, _ in pairs]
     txts = [t for _, t in pairs]
     opts = AlignmentOptions(
-        penalties=PEN, compute_cigar=True, max_error=400, backend="xla"
+        penalties=PEN, compute_cigar=True, max_error=400
     )
     res = align_pairs(pats, txts, opts)
     for i, ((p, t), r) in enumerate(zip(pairs, res)):
@@ -65,7 +65,7 @@ def test_fuzz_mixed_lengths_banded_distance():
     pats = [p for p, _ in pairs]
     txts = [t for _, t in pairs]
     opts = AlignmentOptions(
-        penalties=PEN, max_error=400, band=25, backend="xla"
+        penalties=PEN, max_error=400, band=25
     )
     res = align_pairs(pats, txts, opts)
     for i, ((p, t), r) in enumerate(zip(pairs, res)):

@@ -41,7 +41,7 @@ def golden_scores(tag):
 @pytest.mark.parametrize("pen,tag", PENALTY_SETS)
 def test_golden_scores_short(pen, tag):
     """All pairs up to 2kbp (295 of 305); the 10kbp tier runs in the slow
-    test below and on the TPU benchmarks."""
+    test below and in chip_smoke.py on the card."""
     pats, txts, idx = load_corpus(max_len=2048)
     golden = golden_scores(tag)
     res = align_pairs(

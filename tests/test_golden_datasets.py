@@ -53,7 +53,7 @@ def test_device_engine_golden_1000_subset():
     batch, golden = _load("seq_1000_n1000")
     expect = [-v for v in golden["results_1000_n1000_x2o3e1"][:16]]
     opts = AlignmentOptions(
-        penalties=Penalties(2, 3, 1), max_error=300, backend="xla"
+        penalties=Penalties(2, 3, 1), max_error=300
     )
     res = align_pairs(batch.patterns[:16], batch.texts[:16], opts)
     assert [r.error for r in res] == expect

@@ -1,6 +1,5 @@
 """Divergence estimator for distance-ordered device tiling."""
 import numpy as np
-import pytest
 
 from wfa_tpu.types import Penalties
 from wfa_tpu.utils.presort import divergence_score, divergence_scores
@@ -76,32 +75,3 @@ def test_align_pairs_results_stay_in_input_order():
 
     for p, t, r in zip(pats, txts, res):
         assert r.error == native.cpu_align_single(p, t, Penalties(2, 3, 1))
-
-
-def test_probe_distances_measures_real_distances():
-    """probe_order pass 1: the narrow-band device probe returns the pairs'
-    measured banded distances (BIG for unfinished), usable as tile hints."""
-    from wfa_tpu.aligner import _probe_distances
-    from wfa_tpu import native
-
-    rng = np.random.default_rng(11)
-    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
-    pats, txts = [], []
-    for e in (0.02, 0.0, 0.05, 0.01):
-        p = rng.choice(bases, size=480).tobytes()
-        pats.append(p)
-        txts.append(_mutate(rng, p, e))
-    pen = Penalties(2, 3, 1)
-    hints = _probe_distances(pats, txts, [0, 1, 2, 3], pen, 240, 0)
-    assert hints is not None and hints.shape == (4,)
-    big = float(1 << 30)
-    finite = hints < big
-    assert finite.any()
-    oracle = np.array(
-        [native.cpu_align_single(p, t, pen) for p, t in zip(pats, txts)],
-        dtype=np.float64,
-    )
-    # Finished probes report a distance >= the exact optimum and the
-    # zero-divergence pair exactly; ORDER is what the hint is for.
-    assert (hints[finite] >= oracle[finite]).all()
-    assert hints[1] == oracle[1] == 0.0

@@ -1,7 +1,6 @@
 """Time the repo's own native CPU engine (native/wfa_cpu.cpp, OpenMP — one
-core on this host) on the exact workloads tools/wfa2_baseline.py measures,
-so BASELINE.md's external-baseline table can carry a complete
-WFA2-lib-CPU vs wfa_tpu-CPU vs wfa_tpu-TPU comparison on identical inputs.
+thread per core) on the exact workloads tools/wfa2_baseline.py measures, for
+a WFA2-lib-CPU vs native-CPU vs device comparison on identical inputs.
 
 Usage:  python tools/cpu_engine_bench.py [--quick]
 Output: one JSON line per workload + a table.

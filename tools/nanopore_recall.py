@@ -1,232 +1,102 @@
-"""Band-width recall on Nanopore-like 20kbp workloads (BASELINE.md).
+"""Band-width recall on Nanopore-like reads.
 
-The reference's approximate-mode chart (README.md:123-137) reports recall
-on a Nanopore dataset; round 1 only measured HiFi recall.  Exact reference
-scores come from the wide exact Pallas kernel itself (W=6144 certifies
-distances < o + e·(W/2+1) = 3076 at penalties 2,3,1), cross-checked
-against the CPU oracle on a subsample.
+The reference's approximate-mode chart (README.md:123-137) reports recall on
+a Nanopore dataset.  This tool aligns one seeded batch exactly (on the
+device, cross-checked against the CPU oracle on a subsample), then in banded
+mode at several band widths, and prints for each width how many pairs the
+device finished and how many of those scored optimally.
 
 Two read models:
 
 * default: uniform 6% error.  Uniform errors keep the optimal path
-  centered, so every band width recalls 100% — this mode bounds the easy
-  case but cannot discriminate.
+  centered, so every band width recalls 100% — this bounds the easy case
+  but cannot discriminate.
 * ``--burst``: 1% background error plus clustered structural events
   (200–500 bp insertions/deletions and 50–300 bp high-error patches at
   random loci).  Long indels displace the optimal path by hundreds of
   diagonals between re-centering steps, which is exactly what the banded
-  heuristic can miss — this is the recall curve that can actually fail
-  (the analog of the reference's real-Nanopore recall chart).
+  heuristic can miss.
+
+Run:  python tools/nanopore_recall.py [--burst] [--n 128] [--length 20000]
 """
+import argparse
 import sys
-import time
+from pathlib import Path
 
-sys.path.insert(0, ".")
-import os
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-import jax
+import numpy as np  # noqa: E402
 
-jax.config.update(
-    "jax_compilation_cache_dir", os.path.expanduser("~/.cache/wfa_tpu_xla")
-)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
-import jax.numpy as jnp
-import numpy as np
-
-import bench
-from wfa_tpu import native
-from wfa_tpu.ops.engine_pallas import PallasConfig, align_batch_pallas
-from wfa_tpu.ops.packing import pack_batch
-from wfa_tpu.types import Penalties
-
-BURST = "--burst" in sys.argv
-# --small: hermetic variant (no TPU needed) — 12x3kbp burst reads on the
-# XLA engine (identical banded semantics, cross-engine-equivalence-tested)
-# with CPU-oracle exact scores; the source of BASELINE.md's round-3
-# burst-recall table.
-SMALL = "--small" in sys.argv
-# --small20: hermetic 20 kbp burst table (XLA engine on CPU); see below.
-SMALL20 = "--small20" in sys.argv
+from wfa_tpu import native  # noqa: E402
+from wfa_tpu.aligner import align_pairs  # noqa: E402
+from wfa_tpu.params import AlignmentOptions  # noqa: E402
+from wfa_tpu.types import Penalties  # noqa: E402
+from wfa_tpu.utils import synth  # noqa: E402
+from wfa_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
 
 
-def _mutate_bursts(rng, seqs, bg_err=0.01, n_bursts=3):
+def mutate_bursts(rng, seqs, bg_err=0.01, n_bursts=3):
     """Background error plus clustered indel/substitution bursts."""
     out = []
     for s in seqs:
-        t = bytearray(bench._mutate_batch(rng, [s], bg_err)[0])
+        t = bytearray(synth.mutate(rng, [s], bg_err)[0])
         for _ in range(n_bursts):
             kind = rng.integers(0, 3)
             pos = int(rng.integers(100, max(101, len(t) - 600)))
             if kind == 0:      # long deletion
-                ln = int(rng.integers(200, 501))
-                del t[pos : pos + ln]
+                del t[pos : pos + int(rng.integers(200, 501))]
             elif kind == 1:    # long insertion
                 ln = int(rng.integers(200, 501))
-                ins = rng.choice(
-                    np.frombuffer(b"ACGT", dtype=np.uint8), size=ln
-                ).tobytes()
-                t[pos:pos] = ins
+                t[pos:pos] = synth.random_reads(rng, 1, ln)[0]
             else:              # high-error patch
                 ln = int(rng.integers(50, 301))
-                patch = bench._mutate_batch(
+                t[pos : pos + ln] = synth.mutate(
                     rng, [bytes(t[pos : pos + ln])], 0.4
                 )[0]
-                t[pos : pos + ln] = patch
         out.append(bytes(t))
     return out
 
 
-if SMALL:
-    jax.config.update("jax_platforms", "cpu")
-    from wfa_tpu.ops.engine_xla import EngineConfig, align_batch_device
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--burst", action="store_true")
+    ap.add_argument("--n", type=int, default=128)
+    ap.add_argument("--length", type=int, default=20000)
+    ap.add_argument("--seed", type=int, default=7)
+    args = ap.parse_args()
+    enable_compile_cache()
 
-    rng = np.random.default_rng(7)
-    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
-    n = 12
-    pats = [rng.choice(bases, size=3000).tobytes() for _ in range(n)]
-    txts = []
-    for s in pats:
-        t = bytearray(bench._mutate_batch(rng, [s], 0.01)[0])
-        for _ in range(2):
-            kind = rng.integers(0, 3)
-            pos = int(rng.integers(100, len(t) - 400))
-            if kind == 0:
-                ln = int(rng.integers(100, 301))
-                del t[pos : pos + ln]
-            elif kind == 1:
-                ln = int(rng.integers(100, 301))
-                t[pos:pos] = rng.choice(bases, size=ln).tobytes()
-            else:
-                ln = int(rng.integers(50, 200))
-                t[pos : pos + ln] = bench._mutate_batch(
-                    rng, [bytes(t[pos : pos + ln])], 0.4
-                )[0]
-        txts.append(bytes(t))
+    rng = np.random.default_rng(args.seed)
+    pats = synth.random_reads(rng, args.n, args.length)
+    txts = (mutate_bursts(rng, pats) if args.burst
+            else synth.mutate(rng, pats, 0.06))
     pen = Penalties(2, 3, 1)
-    exact = np.array(
-        [native.cpu_align_single(p, t, pen) for p, t in zip(pats, txts)]
+    max_error = 5000
+
+    res = align_pairs(
+        pats, txts, AlignmentOptions(penalties=pen, max_error=max_error)
     )
-    print(f"exact (CPU oracle): {exact.min()}..{exact.max()}")
-    lmax = max(max(len(p), len(t)) for p, t in zip(pats, txts))
-    pat, plen, vp = pack_batch(pats, lmax // 16 + 2)
-    txt, tlen, vt = pack_batch(txts, lmax // 16 + 2)
-    args = (
-        jnp.asarray(pat), jnp.asarray(txt),
-        jnp.asarray(plen), jnp.asarray(tlen), jnp.asarray(vp & vt),
-    )
-    for width in (129, 257, 513):
-        cfg = EngineConfig(
-            penalties=pen, max_steps=2500, wf_width=width, band=25,
-            compute_cigar=False,
-        )
-        out = align_batch_device(cfg, *args)
-        d = np.asarray(out["distance"])
-        f = np.asarray(out["finished"])
+    exact = np.array([r.error for r in res])
+    for i in rng.choice(args.n, size=min(4, args.n), replace=False):
+        assert exact[i] == native.cpu_align_single(pats[i], txts[i], pen), i
+    print(f"exact distances: {exact.min()}..{exact.max()}")
+
+    for width in (128, 256, 512, 1024):
+        res = align_pairs(pats, txts, AlignmentOptions(
+            penalties=pen, max_error=max_error, band=25, band_width=width,
+            device_retries=0, cpu_fallback=False,
+        ))
+        d = np.array([r.error for r in res])
+        f = np.array([r.finished_on_accelerator for r in res])
         opt = (d == exact) & f
         print(
-            f"band width {width:4d}: finished {f.sum()}/{n}, "
-            f"score==optimal {opt.sum()}/{n} "
-            f"({100.0*opt.sum()/n:.1f}%), max inflation "
+            f"band width {width:4d}: finished {f.sum()}/{args.n}, "
+            f"score==optimal {opt.sum()}/{args.n} "
+            f"({100.0 * opt.sum() / args.n:.1f}%), max inflation "
             f"{(d - exact)[f].max(initial=0)}"
         )
-    sys.exit(0)
+    return 0
 
-if SMALL20:
-    # Hermetic 20 kbp burst table (XLA engine on CPU — identical banded
-    # semantics to the Pallas kernel, cross-engine-equivalence-tested):
-    # the full-scale analog of the 3 kbp --small table, so the recall
-    # curve exists at the reference chart's read length even without HW.
-    jax.config.update("jax_platforms", "cpu")
-    from wfa_tpu.ops.engine_xla import EngineConfig, align_batch_device
 
-    rng = np.random.default_rng(7)
-    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
-    n = 8
-    pats = [rng.choice(bases, size=20000).tobytes() for _ in range(n)]
-    txts = _mutate_bursts(rng, pats)
-    pen = Penalties(2, 3, 1)
-    t0 = time.time()
-    exact = np.array(
-        [native.cpu_align_single(p, t, pen) for p, t in zip(pats, txts)]
-    )
-    print(f"exact (CPU oracle): {exact.min()}..{exact.max()} "
-          f"({time.time()-t0:.1f}s)")
-    lmax = max(max(len(p), len(t)) for p, t in zip(pats, txts))
-    nw = lmax // 16 + 2
-    pat, plen, vp = pack_batch(pats, nw)
-    txt, tlen, vt = pack_batch(txts, nw)
-    args = (
-        jnp.asarray(pat), jnp.asarray(txt),
-        jnp.asarray(plen), jnp.asarray(tlen), jnp.asarray(vp & vt),
-    )
-    cap = int(exact.max()) + 1200
-    for width in (129, 257, 513, 1025):
-        t0 = time.time()
-        cfg = EngineConfig(
-            penalties=pen, max_steps=cap, wf_width=width, band=25,
-            compute_cigar=False,
-        )
-        out = align_batch_device(cfg, *args)
-        d = np.asarray(out["distance"])
-        f = np.asarray(out["finished"])
-        opt = (d == exact) & f
-        print(
-            f"band width {width:4d}: finished {f.sum()}/{n}, "
-            f"score==optimal {opt.sum()}/{n} "
-            f"({100.0*opt.sum()/n:.1f}%), max inflation "
-            f"{(d - exact)[f].max(initial=0)}  [{time.time()-t0:.0f}s]"
-        )
-    sys.exit(0)
-
-rng = np.random.default_rng(7)
-bases = np.frombuffer(b"ACGT", dtype=np.uint8)
-n = 128
-pats = [rng.choice(bases, size=20000).tobytes() for _ in range(n)]
-if BURST:
-    txts = _mutate_bursts(rng, pats)
-else:
-    txts = bench._mutate_batch(rng, pats, 0.06)
-
-lmax = max(max(len(p), len(t)) for p, t in zip(pats, txts))
-nwp = ((lmax // 16 + 16 + 127) // 128) * 128
-pat, plen, vp = pack_batch(pats, nwp)
-txt, tlen, vt = pack_batch(txts, nwp)
-pen = Penalties(2, 3, 1)
-args = (
-    jnp.asarray(pat), jnp.asarray(txt),
-    jnp.asarray(plen), jnp.asarray(tlen), jnp.asarray(vp & vt),
-)
-
-# Exact reference scores on device (certified).
-cert_bound = pen.o + pen.e * (6144 // 2 + 1)
-cfg_e = PallasConfig(
-    penalties=pen, max_steps=5000, wf_width=6144, tile_batch=8, band=-1,
-    score_cap=cert_bound + 1, extend_span=4,
-    vmem_limit_bytes=24 << 20,
-)
-out = align_batch_pallas(cfg_e, *args)
-exact = np.asarray(out["distance"])
-fin_e = np.asarray(out["finished"])
-assert fin_e.all() and (exact < cert_bound).all(), "exact pass uncertified"
-
-# CPU cross-check on a subsample.
-for i in rng.choice(n, size=4, replace=False):
-    assert exact[i] == native.cpu_align_single(pats[i], txts[i], pen), i
-print(f"exact distances: {exact.min()}..{exact.max()} (all certified)")
-
-for width in (128, 256, 512, 1024):
-    cfg_b = PallasConfig(
-        penalties=pen, max_steps=5000, wf_width=width, tile_batch=8, band=25,
-    )
-    out = align_batch_pallas(cfg_b, *args)
-    d = np.asarray(out["distance"])
-    f = np.asarray(out["finished"])
-    opt = (d == exact) & f
-    infl = (d - exact)[f]
-    print(
-        f"band width {width:4d}: finished {f.sum()}/{n}, "
-        f"score==optimal {opt.sum()}/{n} "
-        f"({100.0*opt.sum()/n:.1f}%), max inflation "
-        f"{infl.max(initial=0)}"
-    )
+if __name__ == "__main__":
+    sys.exit(main())

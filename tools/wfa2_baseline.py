@@ -2,11 +2,9 @@
 
 Builds `/root/reference/external/WFA` (copied OUT of the read-only reference
 tree into /tmp — none of its code enters this repo) and runs its
-`align_benchmark` tool on the exact workloads `bench.py` measures, so
-BASELINE.md can carry an independent-implementation comparison column:
-WFA2-lib CPU vs wfa_tpu CPU engine vs wfa_tpu TPU kernels on identical
-inputs.  This is the first cross-implementation number in the project —
-the reference's GPU figures (paper-only) are unretrievable offline.
+`align_benchmark` tool on the exact workloads `bench.py` measures, for an
+independent-implementation comparison column: WFA2-lib CPU vs this repo's
+CPU engine vs its device engine on identical inputs.
 
 Usage:  python tools/wfa2_baseline.py [--quick]
 Output: one table + one JSON line per workload on stdout.

@@ -1,9 +1,9 @@
-"""wfa_tpu — TPU-native wavefront alignment (WFA) framework.
+"""wfa_tpu — wavefront alignment (WFA) framework in JAX/XLA.
 
-A from-scratch JAX/XLA/Pallas re-design of batch gap-affine pairwise DNA
-alignment with the capabilities of WFA-GPU (exact + adaptive-band modes,
-distance-only or full CIGAR, CPU fallback, .seq/FASTA IO, CLI), built for
-TPUs: static-shape batched wavefront kernels, host-precomputed control
+A from-scratch re-design of batch gap-affine pairwise DNA alignment with the
+capabilities of WFA-GPU (exact + adaptive-band modes, distance-only or full
+CIGAR, CPU fallback, .seq/FASTA IO, CLI), run on an accelerator through XLA:
+static-shape batched wavefront programs, host-precomputed control
 schedules, dense choice-table backtraces, and data-parallel sharding over
 device meshes.
 """

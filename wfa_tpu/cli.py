@@ -1,10 +1,10 @@
 """Command-line aligner — flag-for-flag port of the reference CLI surface
-(tools/aligner.c:60-187), TPU backend.
+(tools/aligner.c:60-187), running on the JAX default device.
 
 Usage examples (cf. tools/aligner.c:211-216):
-    wfa.affine.tpu -i sequences.seq -b 1000 -o scores.out
-    wfa.affine.tpu -i sequences.seq -B auto -o scores-banded.out
-    wfa.affine.tpu -Q queries.fasta -T targets.fasta -x -o cigars.out
+    wfa.affine.jax -i sequences.seq -b 1000 -o scores.out
+    wfa.affine.jax -i sequences.seq -B auto -o scores-banded.out
+    wfa.affine.jax -Q queries.fasta -T targets.fasta -x -o cigars.out
 
 Output format matches tools/aligner.c:497-509: per alignment one line
 ``-error<TAB>cigar`` (``-O`` appends pattern and text columns).
@@ -25,8 +25,8 @@ from .utils.logger import LOG, set_verbosity
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        prog="wfa.affine.tpu",
-        description="Batch gap-affine pairwise alignment (WFA) on TPU",
+        prog="wfa.affine.jax",
+        description="Batch gap-affine pairwise alignment (WFA) on an accelerator",
     )
     p.add_argument("-i", "--input-seq", help=".seq file (alternating >pattern / <text lines)")
     p.add_argument("-Q", "--input-fasta-query", help="FASTA with query (pattern) sequences")
@@ -39,11 +39,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-b", "--batch-size", type=int, help="alignments per pipeline batch")
     p.add_argument("-B", "--band", default=None, help="banded (heuristic) execution; value = re-centering interval, 'auto' = 25")
     p.add_argument("-t", "--band-width", type=int, default=None, help="band window width in diagonals (reference: threads per block)")
-    p.add_argument("-w", "--workers", type=int, default=None, help="accepted for compatibility; the TPU engine sizes its own grid")
+    p.add_argument("-w", "--workers", type=int, default=None, help="accepted for compatibility; the device engine sizes its own tiles")
     p.add_argument("-o", "--output-file", help="output file for results")
     p.add_argument("-p", "--print-output", action="store_true", help="print output to stderr")
     p.add_argument("-O", "--output-verbose", action="store_true", help="append pattern/text columns to the output")
-    p.add_argument("--backend", choices=["auto", "xla", "pallas"], default="auto", help="device engine selection")
     p.add_argument("--profile", metavar="DIR", help="write a JAX profiler trace of the alignment run to DIR")
     p.add_argument("-v", "--verbose", action="store_true")
     return p
@@ -71,29 +70,9 @@ def main(argv: list[str] | None = None) -> int:
     if args.verbose:
         set_verbosity("DEBUG")
 
-    # Persistent XLA compilation cache: kernel compiles survive across CLI
-    # invocations (the analog of the reference building its cubins once).
-    import os
+    from .utils.compile_cache import enable_compile_cache
 
-    # WFA_TPU_PLATFORM=cpu forces the JAX platform before first device use
-    # (the JAX_PLATFORMS env var is ignored by some remote-TPU plugins, so
-    # this goes through jax.config); useful for running the CLI on hosts
-    # whose accelerator is absent or unreachable.
-    platform = os.environ.get("WFA_TPU_PLATFORM")
-    if platform:
-        import jax
-
-        jax.config.update("jax_platforms", platform)
-
-    cache_dir = os.environ.get(
-        "WFA_TPU_CACHE_DIR",
-        os.path.join(os.path.expanduser("~"), ".cache", "wfa_tpu_xla"),
-    )
-    if cache_dir and cache_dir != "0":
-        import jax
-
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    enable_compile_cache()
 
     # Device detection banner (tools/aligner.c:189-204 analog).
     from .utils.device_query import describe
@@ -194,7 +173,6 @@ def main(argv: list[str] | None = None) -> int:
         batch_size=batch_size,
         band=band if args.band is not None else -1,
         band_width=args.band_width,
-        backend=args.backend,
     )
 
     t0 = time.time()

@@ -24,6 +24,7 @@ from pathlib import Path
 import numpy as np
 
 from .types import Penalties
+from .utils.logger import LOG
 
 _REPO_ROOT = Path(__file__).resolve().parent.parent
 _SO_PATH = _REPO_ROOT / "build" / "libwfatpu_native.so"
@@ -46,8 +47,14 @@ def _try_build() -> None:
                 capture_output=True,
                 timeout=120,
             )
-        except Exception:
-            pass
+        except subprocess.CalledProcessError as e:
+            LOG.warning(
+                "native build failed; using the Python fallbacks:\n%s",
+                e.stderr.decode(errors="replace")[-2000:],
+            )
+        except (OSError, subprocess.TimeoutExpired) as e:
+            LOG.warning("native build failed (%s); using the Python "
+                        "fallbacks", e)
 
 
 def get_lib() -> ct.CDLL:
@@ -91,21 +98,6 @@ def _load_and_bind() -> ct.CDLL:
     lib.wfa_traceback_batch.argtypes = [
         ct.c_void_p, ct.c_void_p, ct.c_int64, ct.c_int64, ct.c_int64,
         ct.c_void_p, ct.c_int64, ct.c_void_p, ct.c_void_p,
-        ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_void_p,
-        ct.c_int, ct.c_int, ct.c_int,
-        ct.c_void_p, ct.c_int64, ct.c_void_p,
-    ]
-    lib.wfa_cigar_from_ops_batch.restype = None
-    lib.wfa_cigar_from_ops_batch.argtypes = [
-        ct.c_void_p, ct.c_int64, ct.c_int64, ct.c_void_p, ct.c_void_p,
-        ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_void_p,
-        ct.c_void_p, ct.c_int64, ct.c_void_p,
-    ]
-    lib.wfa_traceback_batch_packed.restype = None
-    lib.wfa_traceback_batch_packed.argtypes = [
-        ct.c_void_p, ct.c_int64, ct.c_int64, ct.c_int64,
-        ct.c_void_p, ct.c_int64, ct.c_int32,
-        ct.c_void_p, ct.c_void_p,
         ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_void_p,
         ct.c_int, ct.c_int, ct.c_int,
         ct.c_void_p, ct.c_int64, ct.c_void_p,
@@ -315,118 +307,6 @@ def traceback_batch(
         sub_c, sub_s = traceback_batch(
             choices[:, over], lo_trace[:, over], step_of_score,
             distances[over], finished[over],
-            [patterns[i] for i in over], [texts[i] for i in over],
-            pen, cigar_stride * 4,
-        )
-        status[over] = sub_s
-        for j, i in enumerate(over):
-            cigars[i] = sub_c[j]
-    return cigars, status
-
-
-def cigar_from_ops_batch(
-    ops_words: np.ndarray,    # [B, OPW] int32 backward 2-bit op streams
-    n_ops: np.ndarray,        # [B] int32 (-1 = corrupt walk)
-    finished: np.ndarray,     # [B] bool
-    patterns: list[bytes],
-    texts: list[bytes],
-    cigar_stride: int = 0,
-) -> tuple[list[str | None], np.ndarray]:
-    """Replay device-walked op streams into CIGARs (the compact path — no
-    choice table ever reaches the host)."""
-    lib = get_lib()
-    B, OPW = ops_words.shape
-    ops_words = np.ascontiguousarray(ops_words, dtype=np.int32)
-    n_ops = np.ascontiguousarray(n_ops, dtype=np.int32)
-    fin8 = np.ascontiguousarray(finished, dtype=np.int8)
-    buf, p_off, t_off, p_len, t_len = _flat_seqs(patterns, texts)
-    status = np.zeros(B, dtype=np.int8)
-
-    if cigar_stride <= 0:
-        cigar_stride = max(64, 8 * int(n_ops.max(initial=0)) + 64)
-    cig_buf = np.zeros(B * cigar_stride, dtype=np.uint8)
-    lib.wfa_cigar_from_ops_batch(
-        _ptr(ops_words), B, OPW, _ptr(n_ops), _ptr(fin8),
-        _ptr(buf), _ptr(p_off), _ptr(t_off), _ptr(p_len), _ptr(t_len),
-        _ptr(cig_buf), cigar_stride, _ptr(status),
-    )
-    cigars: list[str | None] = []
-    raw = cig_buf.tobytes()
-    for i in range(B):
-        if status[i] == 1:
-            s = raw[i * cigar_stride : (i + 1) * cigar_stride]
-            cigars.append(s.split(b"\0", 1)[0].decode())
-        else:
-            cigars.append(None)
-    over = np.flatnonzero(status == 2)
-    if over.size:  # retry the overflowing subset only
-        sub_c, sub_s = cigar_from_ops_batch(
-            ops_words[over], n_ops[over], finished[over],
-            [patterns[i] for i in over], [texts[i] for i in over],
-            cigar_stride * 4,
-        )
-        status[over] = sub_s
-        for j, i in enumerate(over):
-            cigars[i] = sub_c[j]
-    return cigars, status
-
-
-def traceback_batch_packed(
-    words: np.ndarray,          # [C, B, W] int32 nibble-packed choices
-    lo_trace: np.ndarray | None,  # [B, lo_stride] int32 by score, or None
-    lo_const: int,
-    distances: np.ndarray,      # [B] int32
-    finished: np.ndarray,       # [B] bool
-    patterns: list[bytes],
-    texts: list[bytes],
-    pen: Penalties,
-    cigar_stride: int = 0,
-) -> tuple[list[str | None], np.ndarray]:
-    """Decode the Pallas engine's packed choice table into CIGARs."""
-    lib = get_lib()
-    C, B, W = words.shape
-    words = np.ascontiguousarray(words, dtype=np.int32)
-    distances = np.ascontiguousarray(distances, dtype=np.int32)
-    fin8 = np.ascontiguousarray(finished, dtype=np.int8)
-    if lo_trace is not None:
-        lo_trace = np.ascontiguousarray(lo_trace, dtype=np.int32)
-        lo_ptr, lo_stride = _ptr(lo_trace), lo_trace.shape[1]
-    else:
-        lo_ptr, lo_stride = None, 0
-    buf, p_off, t_off, p_len, t_len = _flat_seqs(patterns, texts)
-    status = np.zeros(B, dtype=np.int8)
-
-    if cigar_stride <= 0:
-        cigar_stride = max(64, 8 * int(distances.max(initial=0)) + 64)
-    cig_buf = np.zeros(B * cigar_stride, dtype=np.uint8)
-    lib.wfa_traceback_batch_packed(
-        _ptr(words), C, B, W,
-        lo_ptr, lo_stride, lo_const,
-        _ptr(distances), _ptr(fin8),
-        _ptr(buf), _ptr(p_off), _ptr(t_off), _ptr(p_len), _ptr(t_len),
-        pen.x, pen.o, pen.e,
-        _ptr(cig_buf), cigar_stride, _ptr(status),
-    )
-    bad = status > 2
-    if bad.any():
-        raise RuntimeError(
-            f"packed traceback failed for {bad.sum()} alignments (codes "
-            f"{np.unique(status[bad])})"
-        )
-    cigars: list[str | None] = []
-    raw = cig_buf.tobytes()
-    for i in range(B):
-        if status[i] == 1:
-            s = raw[i * cigar_stride : (i + 1) * cigar_stride]
-            cigars.append(s.split(b"\0", 1)[0].decode())
-        else:
-            cigars.append(None)
-    over = np.flatnonzero(status == 2)
-    if over.size:  # retry the overflowing subset only
-        sub_c, sub_s = traceback_batch_packed(
-            words[:, over],
-            lo_trace[over] if lo_trace is not None else None,
-            lo_const, distances[over], finished[over],
             [patterns[i] for i in over], [texts[i] for i in over],
             pen, cigar_stride * 4,
         )

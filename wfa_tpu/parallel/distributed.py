@@ -1,16 +1,19 @@
 """Multi-host bring-up and batch partitioning.
 
-The reference is single-process, single-GPU (SURVEY §2.4 item 5); scaling the
-TPU framework across hosts is a new subsystem: `jax.distributed` initializes
-the multi-process runtime, the global mesh spans every chip of the pod slice,
-and each host feeds its own slice of the input batch.  Alignments are
+The reference is single-process, single-GPU (SURVEY §2.4 item 5); scaling
+across processes is a new subsystem: `jax.distributed` initializes the
+multi-process runtime and each process feeds its own slice of the input
+batch to its own devices.  Alignments are
 independent, so host-sharding is pure striding — no redistribution, and each
 host decodes/falls back only its local results.
 
-Typical use on each host of a pod slice:
+Typical use, in each of N processes.  JAX reserves most of a card's memory
+when a process first uses it, so on a GPU host every process must see its
+own card (``CUDA_VISIBLE_DEVICES`` or ``jax.distributed.initialize``'s
+``local_device_ids``):
 
     from wfa_tpu.parallel.distributed import initialize, host_shard
-    initialize()                       # env-driven (TPU pods autodetect)
+    initialize("localhost:12345", N, process_id)
     mine = host_shard(len(patterns))   # slice of the global batch
     results = align_pairs_pipelined(
         [patterns[i] for i in mine], [texts[i] for i in mine], opts)
@@ -30,9 +33,9 @@ def initialize(
 ) -> None:
     """Bring up the multi-process JAX runtime (idempotent).
 
-    With no arguments, relies on the TPU pod environment autodetection that
-    `jax.distributed.initialize` performs; explicit values support manual
-    bring-up (e.g. CPU/GPU multi-process testing).
+    Pass the coordinator address, process count and this process's id;
+    with no cluster environment to read them from, ``jax.distributed``
+    cannot find them itself, and the call degrades to one process.
 
     The already-initialized check must NOT touch `jax.process_count()` —
     that instantiates the backends, after which `jax.distributed.initialize`
@@ -117,7 +120,7 @@ def allgather_scores(
     total: int | None = None,
     fill: int = -1,
 ) -> np.ndarray:
-    """Gather per-host score arrays to every host (DCN collective).
+    """Gather per-host score arrays to every host (cross-process collective).
 
     `process_allgather` requires equal-length arrays on every host, but
     `host_shard` shards are unequal whenever ``total % nproc != 0`` — pass

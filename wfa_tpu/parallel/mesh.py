@@ -1,18 +1,19 @@
-"""Data-parallel execution over a TPU device mesh.
+"""Data-parallel execution over a 1-D device mesh.
 
 The reference is strictly single-GPU (device 0 hard-coded,
 lib/sequence_alignment.cu:87); its only scale-out axis is more blocks on one
-chip.  The TPU-native framework scales the *batch* dimension across chips and
-hosts instead: alignments are independent, so the natural mapping is pure data
-parallelism over a 1-D ``("data",)`` mesh — each device runs the full
-wavefront engine on its shard of the batch with zero per-step communication
-(the termination `while_loop` is per-shard, so no cross-device sync happens
-inside the hot loop), and results are gathered once at the end.
+card.  Here the *batch* dimension scales across cards and hosts instead:
+alignments are independent, so the natural mapping is pure data parallelism
+over a 1-D ``("data",)`` mesh that follows the batch — each device runs the
+full wavefront engine on its shard with zero per-step communication (the
+termination `while_loop` is per-shard, so no cross-device sync happens inside
+the hot loop), and results are gathered once at the end.  Nothing assumes a
+particular interconnect topology.
 
-Multi-host: initialize `jax.distributed` and build the mesh over all devices;
-each host feeds its local shard (see pipeline.py).  TP/PP/SP/EP have no
-counterpart in this workload (SURVEY §2.4 item 5) — there is no tensor to
-shard within one alignment beyond the wavefront itself, which fits in VMEM.
+Multi-host: initialize `jax.distributed` and build the mesh over each
+process's local devices (see parallel/distributed.py).  TP/PP/SP/EP have no
+counterpart in this workload (SURVEY §2.4 item 5): there is no tensor to
+shard within one alignment beyond the wavefront itself.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ import functools
 import jax
 import numpy as np
 from jax import shard_map
-from jax.sharding import Mesh, NamedSharding
+from jax.sharding import Mesh
 from jax.sharding import PartitionSpec as P
 
 
@@ -30,17 +31,13 @@ def data_mesh(devices=None) -> Mesh:
 
     Defaults to this process's **local** devices: the aligner host-shards the
     batch before it reaches the engines (cli.py multi-host branch), so each
-    process must shard-map its host-local arrays over its own chips only — a
+    process must shard-map its host-local arrays over its own devices only — a
     global mesh would treat the per-host numpy inputs as replicated and the
     SPMD programs would diverge when per-host shard sizes differ.
     Single-process runs see every device either way.
     """
     devices = devices if devices is not None else jax.local_devices()
     return Mesh(np.asarray(devices), axis_names=("data",))
-
-
-def pad_to_multiple(n: int, m: int) -> int:
-    return ((n + m - 1) // m) * m
 
 
 @functools.partial(jax.jit, static_argnames=("cfg", "mesh"))
@@ -81,113 +78,3 @@ def align_batch_sharded(
         )
 
     return run(pat, txt, plen, tlen, valid)
-
-
-def shard_count(mesh: Mesh | None) -> int:
-    return int(np.prod(list(mesh.shape.values()))) if mesh is not None else 1
-
-
-@functools.partial(jax.jit, static_argnames=("cfg", "mesh"))
-def align_batch_pallas_sharded(
-    cfg,
-    mesh: Mesh,
-    pat,
-    txt,
-    plen,
-    tlen,
-    valid,
-):
-    """Shard-mapped Pallas engine: each chip runs the Pallas WFA kernel on
-    its batch shard (batch dim must be divisible by mesh size x tile_batch).
-
-    Choice tables and lo traces shard on their batch dimension, so CIGAR
-    decode can run per-host on local shards without any gather.
-    """
-    from ..ops.engine_pallas import align_batch_pallas_impl
-
-    in_specs = (P("data"), P("data"), P("data"), P("data"), P("data"))
-    out_specs = {"distance": P("data"), "finished": P("data")}
-    if cfg.compute_cigar:
-        out_specs["choice_words"] = P(None, "data", None)
-        if cfg.banded:
-            out_specs["lo_trace"] = P("data", None)
-
-    @functools.partial(
-        shard_map, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-        check_vma=False,
-    )
-    def run(pat_s, txt_s, plen_s, tlen_s, valid_s):
-        return align_batch_pallas_impl(
-            cfg, pat_s, txt_s, plen_s, tlen_s, valid_s
-        )
-
-    return run(pat, txt, plen, tlen, valid)
-
-
-@functools.partial(jax.jit, static_argnames=("cfg", "tb_cfg", "mesh"))
-def align_cigar_fused_sharded(
-    cfg,
-    tb_cfg,
-    mesh: Mesh,
-    pat,
-    txt,
-    plen,
-    tlen,
-    valid,
-):
-    """Shard-mapped fused CIGAR pipeline: alignment kernel + on-device
-    traceback per shard, one [B, 4 + OPW] fetch array out (batch on "data",
-    zero cross-chip traffic)."""
-    from ..ops.traceback_pallas import align_cigar_fused_impl
-
-    in_specs = (P("data"), P("data"), P("data"), P("data"), P("data"))
-
-    @functools.partial(
-        shard_map, mesh=mesh, in_specs=in_specs, out_specs=P("data", None),
-        check_vma=False,
-    )
-    def run(pat_s, txt_s, plen_s, tlen_s, valid_s):
-        return align_cigar_fused_impl(
-            cfg, tb_cfg, pat_s, txt_s, plen_s, tlen_s, valid_s
-        )
-
-    return run(pat, txt, plen, tlen, valid)
-
-
-@functools.partial(jax.jit, static_argnames=("cfg", "mesh"))
-def traceback_batch_sharded(
-    cfg,
-    mesh: Mesh,
-    choice_words,
-    lo_trace,
-    dist,
-    fin,
-    target_k,
-):
-    """Shard-mapped on-device traceback: each chip walks its own shard's
-    alignments and emits compact op streams (batch dim on the "data" axis,
-    matching the engine's choice-table sharding — no cross-chip traffic)."""
-    from ..ops.traceback_pallas import traceback_batch_device_impl
-
-    in_specs = [P(None, "data", None)]
-    args = [choice_words]
-    if cfg.banded:
-        in_specs.append(P("data", None))
-        args.append(lo_trace)
-    in_specs += [P("data"), P("data"), P("data")]
-    args += [dist, fin, target_k]
-    out_specs = {"ops": P("data", None), "n_ops": P("data")}
-
-    @functools.partial(
-        shard_map, mesh=mesh, in_specs=tuple(in_specs), out_specs=out_specs,
-        check_vma=False,
-    )
-    def run(*shard_args):
-        if cfg.banded:
-            cw, lo, d, f, tk = shard_args
-        else:
-            cw, d, f, tk = shard_args
-            lo = None
-        return traceback_batch_device_impl(cfg, cw, lo, d, f, tk)
-
-    return run(*args)

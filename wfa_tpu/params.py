@@ -1,14 +1,14 @@
 """Alignment options and auto-derivation heuristics.
 
-TPU-native counterpart of ``wfa_alignment_options_t`` and its helpers
+Counterpart of ``wfa_alignment_options_t`` and its helpers
 (lib/alignment_parameters.h:33-106, tools/aligner.c:311-416).  Fields map as:
 
 * ``max_error``       — identical meaning (kernel step budget / memory sizing).
 * ``band_width``      — the reference's band width is implicitly
                         ``threads_per_block`` (tools/aligner.c:413); here it
                         is an explicit wavefront-window width.
-* ``num_workers``     — no analog: the TPU engine processes dense batch tiles
-                        on a grid instead of persistent blocks pulling from an
+* ``num_workers``     — no analog: the device engine processes dense batch
+                        tiles instead of persistent blocks pulling from an
                         atomic pool (SURVEY §2.4).
 * ``batch_size``      — host streaming-pipeline batch (lib/align.cu:177).
 * ``band``            — re-centering interval; <0 disables (exact mode),
@@ -61,7 +61,7 @@ class AlignmentOptions:
     batch_size: int | None = None      # None: all pairs in one pipeline batch
     band: int = -1                     # re-center interval; 0 = auto(25)
     band_width: int | None = None      # None: auto table
-    # Device tiling knobs (TPU-specific).
+    # Device tiling: lanes per tile, and the device memory one tile may use.
     tile_batch: int | None = None      # None: auto from memory budget
     memory_budget_bytes: int = 1 << 30
     # Run CPU fallback for unfinished/invalid pairs (reference always does).
@@ -74,19 +74,9 @@ class AlignmentOptions:
     # tier keeps heuristically-divergent pairs on the accelerator instead.
     # 0 disables (exact reference routing).
     device_retries: int = 1
-    # Device engine: "auto" uses the Pallas kernels on TPU where they apply,
-    # the portable XLA engine elsewhere; "xla"/"pallas" force one.
-    backend: str = "auto"
     # Shard alignment batches over all visible devices (pure data parallelism
     # over a 1-D mesh; SURVEY §2.4 item 5).  Ignored with one device.
     data_parallel: bool = True
-    # Two-pass ordered tiling: run a cheap narrow-band distance-only probe
-    # pass on device and order the main pass's tiles by MEASURED distance
-    # instead of the host-side divergence estimate (oracle distance ordering
-    # measured 1.74x vs the estimate's 1.30x on diverse 14kbp batches,
-    # utils/presort.py).  Only sensible for long-read CIGAR workloads where
-    # the probe is a small fraction of the main pass; default off.
-    probe_order: bool = False
 
     def resolved_band(self) -> int:
         if self.band == 0:

@@ -1,12 +1,12 @@
 """Streaming batch pipeline.
 
-TPU-native equivalent of the reference's double-buffered batch loop
+Counterpart of the reference's double-buffered batch loop
 (lib/align.cu:177-385): there, stream1 prefetches batch i+1's sequences H2D
 while stream2 packs/aligns batch i and the host (OpenMP) post-processes batch
 i-1 (CPU fallback re-alignment + CIGAR expansion, lib/align.cu:236-255).
 
 Here the same overlap falls out of a two-deep thread pipeline: JAX dispatch is
-asynchronous, device execution serializes on the TPU stream, and the host
+asynchronous, device execution serializes on the device stream, and the host
 stages (packing, choice-table decode, CPU fallback) of one batch run while the
 device computes the other.  ctypes calls into the native OpenMP engines
 release the GIL, so both threads make real progress.

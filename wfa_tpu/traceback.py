@@ -24,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 
 from .schedule import WavefrontSchedule
-from .types import AffineOp, Penalties
+from .types import AffineOp
 
 # Choice encoding (must match ops/engine_xla.py).
 M_FROM_X = 0
@@ -173,105 +173,4 @@ def recover_cigar(
         return f"{len(text)}M"
     target_k = len(text) - len(pattern)
     ops = walk_ops(choices, lo_trace, sched, distance, target_k)
-    return ops_to_cigar(ops, pattern, text)
-
-
-def walk_ops_packed(
-    words: np.ndarray,        # [C, W] int32 nibble-packed choices for one pair
-    lo_of_score,              # callable score -> window base
-    pen: Penalties,
-    distance: int,
-    target_k: int,
-) -> list[int]:
-    """Backward walk over the Pallas engine's by-score nibble-packed table
-    (4-bit choice of score d at words[d >> 3, j] >> 4*(d & 7))."""
-    x, oe, e = pen.x, pen.o + pen.e, pen.e
-
-    ops_rev: list[int] = []
-    mat = 0
-    d = int(distance)
-    k = int(target_k)
-    while d > 0:
-        j = k - lo_of_score(d)
-        # Fail loudly on a corrupt walk instead of wrapping via Python
-        # negative indexing (mirrors native/traceback.cpp decode_one_packed's
-        # error codes).
-        if j < 0 or j >= words.shape[1] or (d >> 3) >= words.shape[0]:
-            raise ValueError(
-                f"packed traceback out of bounds (d={d} j={j} "
-                f"table={words.shape})"
-            )
-        ch = (int(words[d >> 3, j]) >> (4 * (d & 7))) & 0xF
-        if mat == 0:
-            ops_rev.append(AffineOp.SUB)
-            c = ch & 3
-            if c == M_FROM_X:
-                d -= x
-            elif c == M_FROM_I:
-                mat = 1
-            else:
-                mat = 2
-        elif mat == 1:
-            ops_rev.append(AffineOp.INS)
-            if ch & 4:
-                d -= e
-            else:
-                mat = 0
-                d -= oe
-            k -= 1
-        else:
-            ops_rev.append(AffineOp.DEL)
-            if ch & 8:
-                d -= e
-            else:
-                mat = 0
-                d -= oe
-            k += 1
-    if mat != 0 or d != 0 or k != 0:
-        raise ValueError(
-            f"packed traceback did not close at origin (mat={mat} d={d} k={k})"
-        )
-    ops_rev.reverse()
-    return ops_rev
-
-
-def ops_from_stream(words_row: np.ndarray, n_ops: int) -> list[int]:
-    """Unpack a device-walked backward op stream (16 2-bit ops per int32 word)
-    into forward-ordered AffineOp values."""
-    ops = [
-        (int(words_row[i >> 4]) >> (2 * (i & 15))) & 3 for i in range(n_ops)
-    ]
-    ops.reverse()
-    return ops
-
-
-def recover_cigar_from_stream(
-    words_row: np.ndarray,  # [OPW] int32 for one alignment
-    n_ops: int,
-    pattern: bytes,
-    text: bytes,
-) -> str:
-    """CIGAR from the Pallas traceback kernel's compact op stream (pure-Python
-    twin of native wfa_cigar_from_ops_batch)."""
-    return ops_to_cigar(ops_from_stream(words_row, n_ops), pattern, text)
-
-
-def recover_cigar_packed(
-    words: np.ndarray,          # [C, W] int32 for one alignment
-    lo_trace: np.ndarray | None,  # [>=max_score] int32 by score, or None
-    lo_const: int,
-    pen: Penalties,
-    distance: int,
-    pattern: bytes,
-    text: bytes,
-) -> str:
-    """CIGAR recovery from the Pallas kernel's packed choice table."""
-    if distance == 0:
-        return f"{len(text)}M"
-    if lo_trace is None:
-        lo_of = lambda d: lo_const
-    else:
-        lo_of = lambda d: int(lo_trace[d])
-    target_k = len(text) - len(pattern)
-    ops = walk_ops_packed(words, lo_of, pen, distance, target_k)
     return ops_to_cigar(ops, pattern, text)

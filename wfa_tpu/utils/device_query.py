@@ -13,8 +13,8 @@ import dataclasses
 
 @dataclasses.dataclass(frozen=True)
 class DeviceInfo:
-    platform: str          # "tpu" / "gpu" / "cpu"
-    device_kind: str       # e.g. "TPU v5 lite"
+    platform: str          # "gpu" / "cpu"
+    device_kind: str       # e.g. "NVIDIA H100 80GB HBM3"
     num_devices: int       # all devices across hosts
     num_local_devices: int
     num_hosts: int

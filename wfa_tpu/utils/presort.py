@@ -1,18 +1,18 @@
 """Divergence-ordered device tiling.
 
-A Pallas tile runs until its slowest lane finishes, so grouping alignments
-of similar *distance* into the same tile directly buys throughput: on a
-synthetic 14kbp batch with 1–9% error rates, oracle distance-ordering
-measured 1.74x over input order (and length-ordering only 1.03x — length is
-a weak predictor of distance; the reference has no analog of this because
-its persistent-kernel work pool load-balances dynamically,
-lib/kernels/common_alignment_kernels.cuh:123-126).
+A device tile runs until its slowest lane finishes, so grouping alignments
+of similar *distance* into the same tile shortens the tiles that would
+otherwise wait on one divergent lane.  Length is a weak predictor of
+distance; the reference has no analog of this because its persistent-kernel
+work pool load-balances dynamically
+(lib/kernels/common_alignment_kernels.cuh:123-126).  The gain on the GPU
+engine is not measured.
 
 `divergence_score` is the cheap host-side predictor that makes this
 practical: sample ~48 k-mers of the pattern and test whether each occurs in
 the text within an indel-drift window around its own position; the miss
 fraction tracks the pair's divergence.  bytes.find runs at C speed, so the
-cost is tens of µs per long read — pipelined behind device compute.
+scan is cheap next to aligning a long read.
 """
 from __future__ import annotations
 
@@ -34,7 +34,7 @@ def divergence_score(
     The drift window is capped: anchors past the cumulative-indel horizon of
     a high-divergence pair read as misses, which only pushes its score
     further up — ranking (all that matters for tiling) is preserved while
-    the byte-scan cost stays ~10 µs per long read.
+    the byte scan stays short.
     """
     L = min(len(pattern), len(text))
     if L < 4 * k:

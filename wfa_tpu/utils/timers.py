@@ -3,7 +3,7 @@
 Role of the reference's CLOCK_INIT/START/STOP/REPORT macros
 (utils/wf_clock.h:29-54, used around file reads and the alignment run at
 tools/aligner.c:288-309,450-474), plus an opt-in hook into the JAX profiler
-for TPU traces (the Nsight `aligner-profile` build-flavor analog,
+for device traces (the Nsight `aligner-profile` build-flavor analog,
 Makefile:23-25).
 """
 from __future__ import annotations
